@@ -1,4 +1,4 @@
-"""ninpol_tpu: TPU-native nodal interpolation for finite-volume schemes.
+"""ninpol_tpu: nodal interpolation for finite-volume schemes in JAX.
 
 A ground-up JAX/XLA rebuild of the capabilities of ninpol (nodal
 interpolation weights for MPFA-D finite-volume pressure solvers on
@@ -8,7 +8,6 @@ returned as a scipy CSR matrix (reference: README.md:20-34,
 ninpol/__init__.py:1-3).
 """
 import os as _os
-import tempfile as _tempfile
 
 import jax as _jax
 
@@ -17,22 +16,22 @@ import jax as _jax
 # silently truncate every array and destroy the 1e-10 parity contract.
 _jax.config.update("jax_enable_x64", True)
 
-# On TPU the default matmul precision is bfloat16; the solvers in ops/solve
-# rely on true float32 MXU passes, so raise the default for this process.
+# The CholQR2 preconditioner needs true float32 matmuls: the GPU default
+# may run float32 products in TF32 (~1e-3 relative), so raise the
+# default for this process.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 # Persistent compilation cache: kernel shapes recur across runs (stencil
-# buckets are rounded to coarse classes for exactly this reason).
-_cache_dir = _os.environ.get(
-    "NINPOL_TPU_JAX_CACHE",
-    _os.path.join(_tempfile.gettempdir(), "ninpol_tpu_jax_cache"))
-if _cache_dir != "0":
-    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    # 0: persist EVERY compiled program.  The 0.5s default left ~20
-    # cheap consolidation programs out of the cache, so every fresh
-    # process re-compiled them through the remote helper (measured:
-    # 20 "fresh compiles" on a fully-warm second bench run).
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+# buckets are rounded to coarse classes for exactly this reason).  JAX
+# itself honours JAX_COMPILATION_CACHE_DIR; otherwise the cache lives at
+# a fixed path in the checkout (the path is part of the cache key).
+if "JAX_COMPILATION_CACHE_DIR" not in _os.environ:
+    _jax.config.update("jax_compilation_cache_dir", _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache"))
+# 0: persist EVERY compiled program, the cheap consolidation programs
+# included.
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 from .interpolator import Interpolator
 from ._grid.grid import Grid

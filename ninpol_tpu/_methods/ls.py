@@ -1,4 +1,4 @@
-"""Least-squares (linear-fit) node interpolation — vmapped TPU kernel.
+"""Least-squares (linear-fit) node interpolation — batched device kernel.
 
 Behavioral rebuild of ninpol/_methods/ls.pyx:33-136: an unweighted linear
 least-squares fit over the surrounding cell centroids, solved with the

@@ -1,6 +1,6 @@
 """Compile-time constants and canonical element-type schema.
 
-TPU-native rebuild of the reference's schema layer:
+Rebuild of the reference's schema layer:
   - size constants mirror the ``NinpolSizes`` enum
     (reference: ninpol/_interpolator/ninpol_defines.pxd:2-9)
   - element point/face/edge orderings mirror the YAML schema

@@ -1,9 +1,12 @@
 """Native (C++) topology engine loader.
 
 Compiles ninpol_tpu/native/topology.cpp into a shared library on first use
-(g++ -O3, cached next to the source) and exposes it through ctypes.  The
-NumPy implementation in _grid/topology.py remains the portable fallback;
-``available()`` gates usage.  Set NINPOL_TPU_NATIVE=0 to disable.
+(g++ -O3 -march=native, cached next to the source; ``make native`` builds
+the same file) and exposes it through ctypes.  The library is not
+version-controlled: it is rebuilt, and replaced atomically, whenever it
+is missing or older than the source.  The NumPy implementation in
+_grid/topology.py remains the portable fallback; ``available()`` gates
+usage.  Set NINPOL_TPU_NATIVE=0 to disable.
 """
 from __future__ import annotations
 

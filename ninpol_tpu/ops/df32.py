@@ -1,10 +1,9 @@
 """Double-float32 ("df32") arithmetic: ~2^-48 precision from float32 ops.
 
-TPU v5e has no float64 hardware; XLA's x64 emulation works but lowers
-every op to multi-pass sequences that dominated the GLS kernel runtime
-and compile time.  This module implements the classical error-free
-transformations (Dekker/Knuth/Ogita-Rump) on float32 PAIRS (hi, lo) so
-the mixed-precision refinement can run at VPU speed:
+The classical error-free transformations (Dekker/Knuth/Ogita-Rump) on
+float32 PAIRS (hi, lo), so the GLS mixed-precision refinement runs in
+float32 arithmetic at near-float64 accuracy (whether native float64
+beats it on the H100 is not measured yet):
 
   * two_sum / fast_two_sum   — exact a+b = s + e
   * split / two_prod         — exact a*b = p + e (Veltkamp splitting;
@@ -14,12 +13,13 @@ the mixed-precision refinement can run at VPU speed:
                                (parallel, depth log2 n, error ~depth*2^-48)
 
 Numerical contract: |result - exact| <= ~2^-44 relative after a depth-8
-tree — validated on-device by tests (XLA must not reassociate these
-expressions; IEEE semantics hold for TPU f32 adds/muls).
+tree — validated by tests (XLA must not reassociate these expressions,
+and IEEE float32 adds and multiplies are assumed).
 """
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 _SPLITTER = 4097.0  # 2^12 + 1 for binary32 Veltkamp splitting
 
@@ -80,9 +80,23 @@ def from_f32(a):
 
 
 def from_f64(a):
-    hi = a.astype(jnp.float32)
-    lo = (a - hi.astype(a.dtype)).astype(jnp.float32)
-    return hi, lo
+    """float64 -> (hi, lo) float32 pair: hi is ``a`` rounded to nearest
+    even float32, lo is ``a - hi`` rounded to float32.
+
+    hi is rounded with integer ops on the float64 bit pattern (drop 29
+    of the 52 mantissa bits), never by an f64 -> f32 -> f64 round trip:
+    a compiler allowed excess precision (XLA's GPU default) may fold
+    that round trip to the identity, which makes every lo zero.  Bitwise
+    equal to the round trip for normal float32 magnitudes; below them
+    (|a| < 2^-126) hi + lo is off a by at most 2^-149."""
+    a = a.astype(jnp.float64)
+    u64 = jnp.uint64
+    bits = lax.bitcast_convert_type(a, u64)
+    # round half to even at bit 29: add 2^28 - 1 plus the kept lsb
+    half = u64(2 ** 28 - 1) + ((bits >> u64(29)) & u64(1))
+    h = lax.bitcast_convert_type((bits + half) & u64(0xFFFF_FFFF_E000_0000),
+                                 jnp.float64)
+    return h.astype(jnp.float32), (a - h).astype(jnp.float32)
 
 
 def to_f64(x):
@@ -99,18 +113,12 @@ def scale(x, s32):
 
 def tree_sum(x, axis):
     """Pairwise df32 reduction along ``axis``: exactly n-1 df32 adds,
-    depth ~log2(n).  Uses static slices only (Pallas-compatible).
+    depth ~log2(n), static slices only.
 
-    The original form padded n up to a power of two with zeros and ran
-    a full even tree — for the GLS scatter stage (n = F = 36 -> 64)
-    that was 63 df32 adds per call where 35 suffice, and the scatter
-    tree was the measured hot spot of the refinement sweeps (round 5
-    attribution, tools/r5_attrib.py).  This form splits n at the
-    largest power of two below it instead (36 = 32 + 4), summing each
-    part pairwise and df32-adding the partial sums: no zero-padding
-    work, same ~depth*2^-48 error class (depth is within +-1 of the
-    padded tree's)."""
-    import jax.lax as lax
+    n is split at the largest power of two below it (36 = 32 + 4), each
+    part summed pairwise and the partial sums df32-added: no
+    zero-padding work (padding 36 -> 64 would cost 63 adds where 35
+    suffice), same ~depth*2^-48 error class."""
 
     def even_tree(xh, xl, n):
         # n is a power of two
@@ -191,12 +199,9 @@ def log2(x):
     atanh series  log(m) = 2 atanh(t), t = (m-1)/(m+1), |t| < 0.172
     (9 odd terms reach ~2^-46), all in df32.
     """
-    import jax.lax as lax
     xh, xl = x
     # frexp via IEEE-754 bit extraction: identical to jnp.frexp for
-    # normal positive floats (all callers clamp to >= 1e-30), and —
-    # unlike jnp.frexp — it lowers inside Pallas/Mosaic kernels, where
-    # the GLS tau computation now runs.
+    # normal positive floats (all callers clamp to >= 1e-30).
     bits = lax.bitcast_convert_type(xh, jnp.int32)
     # (i32 literal pinning: see exp2)
     ex = (((bits >> jnp.int32(23)) & jnp.int32(0xFF)) - jnp.int32(126))
@@ -245,10 +250,8 @@ def exp2(x):
     # field wraps silently outside [-126, 127], so saturate: beyond the
     # clamp the result degrades gracefully to ~2^±126-ish magnitudes
     # instead of garbage (powd's documented domain is |x| < ~120).
-    import jax.lax as lax
     # int literals pinned to i32: under x64 a bare python int traces as
-    # a weak i64 constant, and the i64->i32 convert it forces falls into
-    # infinite _convert_helper recursion at Mosaic lowering time
+    # a weak i64 constant
     ki = jnp.clip(k.astype(jnp.int32), jnp.int32(-126), jnp.int32(127))
     p2k = lax.bitcast_convert_type(
         ((ki + jnp.int32(127)) << jnp.int32(23)).astype(jnp.int32),
@@ -263,9 +266,7 @@ def exp2(x):
 def powd(x, y):
     """df32 x**y for positive df32 x:  2^(y * log2 x), ~2^-41.
 
-    Replaces float64 pow on TPU, where the emulated transcendental costs
-    ~30 ns/element (9 ms per 8k-node GLS chunk just for the tau
-    weights); this runs as ~60 plain f32 vector ops.
+    Runs as ~60 plain f32 vector ops.
     """
     return exp2(mul(y, log2(x)))
 

@@ -1,11 +1,11 @@
-"""Batched small linear-algebra building blocks, designed for TPU/XLA.
+"""Batched small linear-algebra building blocks for the GLS solve.
 
-Measured on TPU v5e (through XLA), the library factorizations
-(``jnp.linalg.qr``/``cholesky``/``triangular_solve``) lower to per-column
-while-loops that run orders of magnitude below hardware speed, and float64
-is software-emulated (~tens of GFLOP/s for matmul).  The kernels here
-therefore use only MXU-friendly batched matmuls and elementwise ops:
-
+  * :func:`gram_f32`, :func:`round2_gram_f32`, :func:`chol_linv_f32`,
+    :func:`prec_apply_f32` — the float32 pieces of the shifted
+    CholeskyQR2 preconditioner (methods/gls.py).  Plain batched einsums
+    and ``jnp.linalg.cholesky`` / ``solve_triangular``: on the GPU XLA
+    hands them to cuBLAS and cuSOLVER batched routines, on the CPU to
+    LAPACK.
   * :func:`spd_block_inverse` — recursive Schur-complement inversion of
     SPD matrices (matmul-only, log2(n) recursion depth, closed-form base).
   * :func:`solve_normal_refined` — mixed-precision least-squares via the
@@ -21,6 +21,49 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+_F32 = jnp.float32
+
+
+def gram_f32(A):
+    """(B, m, n) f32 -> (B, n, n) f32 Gram matrices A_b^T A_b."""
+    return jnp.einsum("bmn,bmk->bnk", A, A, preferred_element_type=_F32)
+
+
+def round2_gram_f32(A, Li):
+    """(B,m,n),(B,n,n) -> (B,n,n) = (A Li^T)^T (A Li^T), the second
+    CholQR Gram (Q = A Li^T is the re-orthonormalised basis)."""
+    Q = jnp.einsum("bmn,bkn->bmk", A, Li, preferred_element_type=_F32)
+    return jnp.einsum("bmn,bmk->bnk", Q, Q, preferred_element_type=_F32)
+
+
+def prec_apply_f32(Lc, v):
+    """Apply the CholQR2 preconditioner M = Lc^T Lc per node.
+
+    Lc: (B, n, n) f32 (combined factor Li2 @ Li1); v: (B, n) f32.
+    Returns (B, n) f32."""
+    t = jnp.einsum("bnk,bk->bn", Lc, v)
+    return jnp.einsum("bkn,bk->bn", Lc, t)
+
+
+def chol_linv_f32(G, tiny=1e-12, mul_right=None):
+    """Batched SPD Cholesky inverse factor.
+
+    G: (B, n, n) f32 SPD.  Returns Linv (B, n, n) with G = L L^T,
+    Linv = L^{-1} (lower triangular); with ``mul_right`` (B, n, n)
+    given, returns L^{-1} @ mul_right instead (used to form the
+    combined CholQR2 factor Li2 @ Li1).  ``tiny`` is added to the
+    diagonal, so a (near-)zero pivot shows as |diag(Linv)| ~
+    1/sqrt(tiny); the non-finite entries of a failed factorization
+    become 1e6.  Callers detect breakdown via ``max |diag(Linv)|``.
+    """
+    n = G.shape[-1]
+    L = jnp.linalg.cholesky(G + (tiny * jnp.eye(n, dtype=G.dtype))[None])
+    L = jnp.where(jnp.isfinite(L), L, 0.0)
+    rhs = (jnp.broadcast_to(jnp.eye(n, dtype=G.dtype), G.shape)
+           if mul_right is None else mul_right)
+    Li = jax.scipy.linalg.solve_triangular(L, rhs, lower=True)
+    return jnp.where(jnp.isfinite(Li), Li, _F32(1e6))
 
 
 def chol_inverse_factor(g):
@@ -132,8 +175,8 @@ def solve_normal_refined(A64, b64, n_refine=3):
         return b64 - jnp.einsum("bmn,bm->bn", A64, Ax)
 
     # Unrolled (n_refine is small): a lax.fori_loop here makes XLA carry
-    # the loop-invariant A through the while-state, copying GBs per
-    # iteration on TPU; unrolling lets it stay in place and fuse.
+    # the loop-invariant A through the while-state, which can copy it
+    # per iteration; unrolling lets it stay in place and fuse.
     dx2 = jnp.zeros((A64.shape[0],), jnp.float64)
     for _ in range(n_refine):
         dx = apply_prec(residual(x))
@@ -220,8 +263,7 @@ def solve_normal_refined_ops(A32, b64, mul_G, n_refine=3):
     """Mixed-precision solve of (A^T A) y = b: float32 QR(A)-based
     preconditioner + float64 residual refinement through the structured
     ``mul_G(y) = A^T(A y)`` closure (the dense float64 A is never
-    materialized — its assembly and emulated-f64 dense matvecs dominated
-    the kernel on TPU).  ``A32`` is the float32 dense assembly, used only
+    materialized).  ``A32`` is the float32 dense assembly, used only
     for equilibration + the preconditioner."""
     d2_32 = jnp.einsum("bmn,bmn->bn", A32, A32)
     dead = d2_32 == 0
@@ -284,8 +326,8 @@ def householder_lastrow(Aug, n_cols):
 
     For an upper-triangular R the last row of R11^-1 is e_n^T/R[n-1,n-1],
     so the full triangular solve is unnecessary.  Matches LAPACK ``dgels``
-    up to rounding.  O(n_cols) sequential batched rank-1 updates: the
-    exact-but-slow path on TPU (float64 emulation), fast on CPU.
+    up to rounding.  O(n_cols) sequential batched rank-1 updates in
+    float64: the exact path.
     """
     dt = Aug.dtype
     m = Aug.shape[1]

@@ -1,16 +1,18 @@
 """Multi-chip scaling over a JAX device mesh.
 
 The reference's only parallelism is intra-process OpenMP over nodes
-(SURVEY.md §2.3); the TPU-native analogue is:
+(SURVEY.md §2.3); the analogue here is:
 
   * single chip: the batched/bucketed kernels (vmap-style) — done in
     _methods/*,
-  * multi chip: shard the NODE axis of each bucket across an ICI-connected
-    device mesh.  Per-node weights are node-local, so the only
-    communication is the gather of cell/face geometry referenced by a
-    shard's stencils.  Sharding the geometry arrays too (memory scaling
-    for huge meshes) makes XLA insert all-gathers on ICI automatically;
-    keeping them replicated makes every gather local.
+  * multi chip: shard the NODE axis of each bucket across a 1D device
+    mesh (the GPUs of one host reach each other at the same NVLink
+    rate, so the mesh follows the algorithm alone).  Per-node weights
+    are node-local, so the only communication is the gather of
+    cell/face geometry referenced by a shard's stencils.  Sharding the
+    geometry arrays too (memory scaling for huge meshes) makes XLA
+    insert the all-gathers automatically; keeping them replicated
+    makes every gather local.
 
 ``shard_interpolate`` wraps a bucket kernel in ``jax.jit`` with explicit
 NamedSharding annotations instead of translating the reference's OpenMP
@@ -25,9 +27,16 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 def make_mesh(n_devices=None, axis="nodes"):
-    """1D device mesh over the node axis."""
+    """1D device mesh over the node axis (all devices by default).
+
+    Raises ValueError when fewer than ``n_devices`` devices exist: a
+    silently smaller mesh would hide the missing devices."""
     devs = jax.devices()
     if n_devices is not None:
+        if n_devices > len(devs):
+            raise ValueError(
+                f"mesh of {n_devices} devices requested, but only "
+                f"{len(devs)} {devs[0].platform} device(s) exist")
         devs = devs[:n_devices]
     return Mesh(np.asarray(devs), (axis,))
 
@@ -82,10 +91,9 @@ def sharded_gls(dgrid, mesh, shard_geometry=False, axis="nodes"):
             n_refine=3, exact=False, neumann_compat=True,
             with_neumann=True):
         put = _put_geo
-        # the ONE 30-column packed face row construction site
+        # the ONE packed face row construction site
         # (gls.build_face_pack) — built on dgrid's device, fetched and
-        # re-placed under this function's mesh/padding policy (bitcast
-        # int columns survive the host round-trip bit-exactly)
+        # re-placed under this function's mesh/padding policy
         face_pack = np.asarray(build_face_pack(
             dgrid, np.asarray(perm), np.asarray(diff_mag),
             np.asarray(neumann_val), put_geo=jnp.asarray))
@@ -96,7 +104,8 @@ def sharded_gls(dgrid, mesh, shard_geometry=False, axis="nodes"):
             put(dgrid.esup2d), put(dgrid.esup_cnt),
             put(dgrid.fsup2d), put(dgrid.fsup_cnt),
             put(np.asarray(dgrid.point_pack)),
-            put(np.asarray(dgrid.cell_pack)), put(face_pack),
+            put(np.asarray(dgrid.cell_pack)),
+            put(np.asarray(dgrid.face_ipack)), put(face_pack),
             put(np.asarray(neumann_flag)),
         )
         with mesh:

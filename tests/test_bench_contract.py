@@ -8,8 +8,7 @@ import pytest
 
 
 def test_bench_emits_json_line():
-    env = dict(os.environ, NINPOL_BENCH_N="4", JAX_PLATFORMS="cpu",
-               PYTHONPATH="")
+    env = dict(os.environ, NINPOL_BENCH_N="4", JAX_PLATFORMS="cpu")
     out = subprocess.run(
         [sys.executable, "bench.py"], capture_output=True, text=True,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -21,6 +20,11 @@ def test_bench_emits_json_line():
         assert key in rec
     assert rec["unit"] == "Mnodes/s"
     assert rec["max_rel_err"] < 1e-10
+    # every record names the device it ran on
+    dev = rec["device"]
+    assert (dev["platform"], dev["count"]) == ("cpu", 8)
+    assert dev["kind"] and "card" in dev and "xla_flags" in dev
+    assert dev["kind"] in rec["metric"]
 
 
 def test_graft_entry_importable():

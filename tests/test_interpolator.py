@@ -155,7 +155,7 @@ def test_load_data_invalidates_face_cache():
     """Reloading cell data (new permeability) must invalidate the GLS
     device face-flux cache.  Regression for the id()-keyed cache: after
     GC a new data array could reuse a freed array's id() and silently be
-    served the stale flux vectors (ADVICE r2)."""
+    served the stale flux vectors."""
     case, interp = setup(fam="tetra", n=3)
     tp = np.arange(interp.grid.n_points)
     W1, _ = interp.prepare_interpolator("gls", case.name, tp)
@@ -212,7 +212,7 @@ def test_device_out_matches_host():
     assert dev.shape == (len(tp), W.shape[1] + 1)
     assert np.abs(dev[:, :W.shape[1]] - W).max() < 1e-12
     assert np.abs(dev[:, W.shape[1]] - NW).max() < 1e-12
-    # idw/ls gained device_out in round 3 (VERDICT r2 #3): the neumann
+    # idw/ls device_out: the neumann
     # column is zero (idw.pyx/ls.pyx never write it)
     for m in ("idw", "ls"):
         Wm, _ = interp.prepare_interpolator(m, case.name, tp)

@@ -204,8 +204,8 @@ def test_all_dirichlet_subset_returns_zero_rows():
 def _prepare_with_scan_spy(interp, case, tp, chunk_nodes=256):
     """Re-run a GLS prepare with tiny chunks (forcing a multi-chunk
     plan) and a gls._build_scan_units spy; saves/restores chunk_nodes
-    from the live attribute (ADVICE r3: a hardcoded restore silently
-    drifts if the default changes).  Returns (W, N, seen_unit_kinds)."""
+    from the live attribute (a hardcoded restore silently drifts if the
+    default changes).  Returns (W, N, seen_unit_kinds)."""
     from ninpol_tpu._methods import gls as gls_mod
 
     seen = []
@@ -351,11 +351,12 @@ def test_mega_plan_device_out_bit_equal(monkeypatch):
 
 
 def test_face_pack_layout():
-    """Pin the 30-column packed face row layout of gls.build_face_pack —
+    """Pin the 28-column packed face row layout of gls.build_face_pack —
     the ONE construction site shared by GLS.prepare,
-    parallel/sharding.sharded_gls and __graft_entry__.entry.  This test
-    goes red if any column moves (a silent layout drift between the
-    three former copies is exactly the bug class this prevents)."""
+    parallel/sharding.sharded_gls and __graft_entry__.entry — and the
+    int32 cell-pair table the kernel gathers beside it.  This test goes
+    red if any column moves (a silent layout drift between the three
+    former copies is exactly the bug class this prevents)."""
     from ninpol_tpu._methods.gls import build_face_pack, \
         precompute_face_data
     case, interp = setup_case("tetra", 2)
@@ -364,7 +365,7 @@ def test_face_pack_layout():
     dg = interp.device_grid
     perm = f["perm"].reshape(-1, 3, 3)
     fp = np.asarray(build_face_pack(dg, perm, f["dmag"], f["nval"]))
-    assert fp.shape == (g.n_faces, 30)
+    assert fp.shape == (g.n_faces, 28)
 
     def hi(a):
         return np.asarray(a, np.float64).astype(np.float32)
@@ -373,141 +374,106 @@ def test_face_pack_layout():
         a = np.asarray(a, np.float64)
         return (a - hi(a).astype(np.float64)).astype(np.float32)
 
-    # [0:2] esuf cell pair, int32 bit patterns preserved through the
-    # f32 bitcast
-    ip = np.ascontiguousarray(fp[:, 0:2]).view(np.int32)
+    # the esuf cell pair: its own int32 table, never float bit patterns
+    ip = np.asarray(dg.face_ipack)
+    assert ip.dtype == np.int32
     np.testing.assert_array_equal(ip, dg.esuf2d_h[:, :2])
-    # [2:8] normal hi/lo, [8:14] face-center hi/lo (exact split by
+    # [0:6] normal hi/lo, [6:12] face-center hi/lo (exact split by
     # construction)
-    np.testing.assert_array_equal(fp[:, 2:5], hi(g.normal_faces))
-    np.testing.assert_array_equal(fp[:, 5:8], lo(g.normal_faces))
-    np.testing.assert_array_equal(fp[:, 8:11], hi(g.faces_centers))
-    np.testing.assert_array_equal(fp[:, 11:14], lo(g.faces_centers))
-    # [14:30] flux block: K@N both sides, eta, per-face Neumann mean
+    np.testing.assert_array_equal(fp[:, 0:3], hi(g.normal_faces))
+    np.testing.assert_array_equal(fp[:, 3:6], lo(g.normal_faces))
+    np.testing.assert_array_equal(fp[:, 6:9], hi(g.faces_centers))
+    np.testing.assert_array_equal(fp[:, 9:12], lo(g.faces_centers))
+    # [12:28] flux block: K@N both sides, eta, per-face Neumann mean
     nL1g, nL2g, etag, _ = precompute_face_data(g, perm, f["dmag"])
-    np.testing.assert_array_equal(fp[:, 14:17], hi(nL1g))
-    np.testing.assert_array_equal(fp[:, 17:20], lo(nL1g))
-    np.testing.assert_array_equal(fp[:, 20:23], hi(nL2g))
-    np.testing.assert_array_equal(fp[:, 23:26], lo(nL2g))
-    np.testing.assert_array_equal(fp[:, 26], hi(etag))
-    np.testing.assert_array_equal(fp[:, 27], lo(etag))
+    np.testing.assert_array_equal(fp[:, 12:15], hi(nL1g))
+    np.testing.assert_array_equal(fp[:, 15:18], lo(nL1g))
+    np.testing.assert_array_equal(fp[:, 18:21], hi(nL2g))
+    np.testing.assert_array_equal(fp[:, 21:24], lo(nL2g))
+    np.testing.assert_array_equal(fp[:, 24], hi(etag))
+    np.testing.assert_array_equal(fp[:, 25], lo(etag))
     nvraw = np.asarray(f["nval"], np.float64)
     ipofa = g.inpofa
     ipv = ipofa >= 0
     nsum = np.where(ipv, nvraw[np.where(ipv, ipofa, 0)], 0.0)
     nmean = nsum.sum(axis=1) / np.maximum(ipv.sum(axis=1), 1)
-    np.testing.assert_array_equal(fp[:, 28], hi(nmean))
-    np.testing.assert_array_equal(fp[:, 29], lo(nmean))
+    np.testing.assert_array_equal(fp[:, 26], hi(nmean))
+    np.testing.assert_array_equal(fp[:, 27], lo(nmean))
 
 
-def test_gls_piece_plane_layout():
-    """Pin the round-5 precomputed piece-plane layout of
-    gls._gls_gather_fused — the solve kernel (pallas_chol._solve_kernel)
-    slices planes by INDEX, so a silent reorder would feed wrong pieces
-    without any shape error.  Recomputes every piece from the raw
-    gather outputs with the same df32 op sequence and asserts
-    bit-equality against the plane slices, for both with/without the
-    Neumann plane block."""
+@pytest.mark.parametrize("fam,n,E,F,wneu", [("hexa", 4, 8, 12, False),
+                                            ("mixed", 3, 20, 28, True),
+                                            ("tetra", 3, 24, 36, True)])
+def test_cholqr_bucket_kernel_matches_oracle(fam, n, E, F, wneu):
+    """The XLA CholQR2 + df32 bucket kernel (gls._gls_bucket_kernel,
+    solver "cholqr"), called directly on one bucket at a fixed stencil
+    class (E, F, with_neumann), vs the dgels oracle.  hexa interior nodes
+    form the (8, 12) class themselves.  Small meshes put no Neumann node
+    in (20, 28) or (24, 36) — mixed gives (16, 28), tetra (12, 24) — so
+    their Neumann nodes run padded up to those classes, as a bucket pads
+    its smaller stencils."""
     import jax.numpy as jnp
-    from ninpol_tpu._methods.gls import (
-        _gls_gather_fused, _gls_gather_raw, build_face_pack)
-    from ninpol_tpu.ops import df32 as dd
-    from ninpol_tpu.ops.pallas_chol import NT
+    from ninpol_tpu._methods.gls import _gls_bucket_kernel, build_face_pack
 
-    case, interp = setup_case("tetra", 2)
+    case, interp = setup_case(fam, n)
     f = get_fields(interp, case.name)
-    g = interp.grid
-    dg = interp.device_grid
-    perm = f["perm"].reshape(-1, 3, 3)
-    face_pack = build_face_pack(dg, perm, f["dmag"], f["nval"])
-    tp = np.arange(g.n_points)
-    active = np.ones(len(tp), bool)
-    bucket = dg.buckets(tp, active)[0]
-    E, F = bucket["E"], bucket["F"]
-    Fp, Ep = -(-F // 8) * 8, -(-E // 8) * 8
-    nflag = jnp.asarray(f["nflag"].astype(np.int32))
-    args = (jnp.asarray(bucket["nodes"]), jnp.asarray(bucket["valid"]),
-            dg.esup2d, dg.esup_cnt, dg.fsup2d, dg.fsup_cnt,
-            dg.point_pack, dg.cell_pack, face_pack, nflag)
+    g, dg = interp.grid, interp.device_grid
+    is_neu = f["nflag"] != 0
+    pick = (~(g.boundary_points.astype(bool) & ~is_neu)
+            & (is_neu == wneu)
+            & (np.diff(g.esup_ptr) <= E) & (np.diff(g.fsup_ptr) <= F))
+    nodes = np.nonzero(pick)[0]
+    assert len(nodes) >= 8, "test premise: too few nodes in the class"
+    B = 256
+    nb = np.zeros(B, np.int32)
+    nb[:len(nodes)] = nodes
+    face_pack = build_face_pack(dg, f["perm"].reshape(-1, 3, 3), f["dmag"],
+                                f["nval"])
+    out = _gls_bucket_kernel(
+        jnp.asarray(nb), jnp.asarray(np.arange(B) < len(nodes)),
+        dg.esup2d, dg.esup_cnt, dg.fsup2d, dg.fsup_cnt, dg.point_pack,
+        dg.cell_pack, dg.face_ipack, face_pack,
+        jnp.asarray(f["nflag"].astype(np.int32)),
+        E=E, F=F, n_refine=2, exact=False, neumann_compat=True,
+        with_neumann=wneu, solver="cholqr")
+    w, wn, rnorm = (np.asarray(x)[:len(nodes)] for x in out)
+    assert w.shape[1] == E
+    Wo, NWo, cond = gls_oracle(g, nodes, f["perm"], f["dmag"], f["nflag"],
+                               f["nval"], return_cond=True)
+    ok = (cond < 1e7) & (rnorm <= 1e-11)
+    assert ok.sum() >= 0.9 * len(nodes), "fast path left too many nodes"
+    scale = max(np.abs(Wo[ok]).max(), 1.0)
+    ncols = min(E, Wo.shape[1])
+    assert np.abs(w[ok][:, :ncols] - Wo[ok][:, :ncols]).max() / scale < 1e-10
+    assert np.abs(Wo[ok][:, ncols:]).max(initial=0.0) == 0.0
+    assert np.abs(wn[ok] - NWo[ok]).max() / scale < 1e-10
+    if wneu:
+        assert np.abs(NWo[ok]).max() > 0, "test premise: no Neumann weight"
 
-    (KS, cell_valid, _ne, face_valid, _nf, fpk, pair, _bnd,
-     cpk, ppk, _isneu, _act) = [np.asarray(x) for x in
-                                _gls_gather_raw(*args, E=E, F=F)]
-    B = len(bucket["nodes"])
 
-    def unplane(t, c, K, Kp):
-        x = np.asarray(t)[:, c * Kp:c * Kp + K, :]
-        return np.transpose(x, (0, 2, 1)).reshape(B, K)
+def test_gls_unknown_solver_raises():
+    """The removed "pallas" solver (or any other unknown solver) is a
+    clean ValueError, not a silent fallback."""
+    case, interp = setup_case("hexa", 3)
+    tp = np.arange(interp.grid.n_points)
+    interp.gls.solver = "pallas"
+    with pytest.raises(ValueError, match="pallas"):
+        interp.prepare_interpolator("gls", case.name, tp)
+    with pytest.raises(ValueError, match="pallas"):
+        interp.interpolate(case.name, "gls")
 
-    # expected pieces, same df32 sequence as the gather program
-    interior = face_valid & (pair[:, :, 1] >= 0)
-    bnd32 = (face_valid & (pair[:, :, 1] < 0)).astype(np.float32)
-    im32 = interior.astype(np.float32)
-    cv32 = cell_valid.astype(np.float32)
-    col = lambda i: jnp.asarray(fpk[:, :, i])
-    xs = [(jnp.asarray(ppk[:, c]), jnp.asarray(ppk[:, c + 3]))
-          for c in range(3)]
-    bcF = lambda p: (jnp.broadcast_to(p[0][:, None], (B, F)),
-                     jnp.broadcast_to(p[1][:, None], (B, F)))
-    Nf = [(col(c), col(3 + c)) for c in range(3)]
-    T1 = [dd.add(bcF(xs[c]), dd.neg((col(6 + c), col(9 + c))))
-          for c in range(3)]
-    T2 = [dd.add(dd.mul(Nf[i], T1[j]), dd.neg(dd.mul(Nf[j], T1[i])))
-          for (i, j) in ((1, 2), (2, 0), (0, 1))]
-    t2n2 = dd.mul(T2[0], T2[0])
-    for c in (1, 2):
-        t2n2 = dd.add(t2n2, dd.mul(T2[c], T2[c]))
-    degen = np.asarray(t2n2[0]) < 1e-30
-    t2h = np.where(interior & ~degen, t2n2[0],
-                   np.where(interior, np.float32(1e-30),
-                            np.float32(1.0))).astype(np.float32)
-    t2l = np.where(interior & ~degen, t2n2[1], 0.0).astype(np.float32)
-    tau = dd.exp2(dd.mul(dd.scale((col(24), col(25)),
-                                  jnp.float32(-0.5)),
-                         dd.log2((jnp.asarray(t2h),
-                                  jnp.asarray(t2l)))))
 
-    for wneu in (True, False):
-        tiles = _gls_gather_fused(*args, E=E, F=F, wneu=wneu)
-        dkp, fgp = tiles[0], tiles[1]
-        n_planes = 32 if wneu else 24
-        assert np.asarray(fgp).shape[1] == n_planes * Fp
-        assert np.asarray(dkp).shape[1] == 6 * Ep
-        for c in range(3):
-            # fgp: l1 | l2 | t1m | tt [| lbnd | nmean]
-            exp = {0: np.asarray(col(12 + c)) * im32,
-                   3: np.asarray(col(15 + c)) * im32,
-                   6: np.asarray(col(18 + c)) * im32,
-                   9: np.asarray(col(21 + c)) * im32,
-                   12: np.asarray(T1[c][0]) * im32,
-                   15: np.asarray(T1[c][1]) * im32}
-            ttc = dd.mul(tau, T2[c])
-            exp[18] = np.asarray(ttc[0]) * im32
-            exp[21] = np.asarray(ttc[1]) * im32
-            if wneu:
-                exp[24] = np.asarray(col(12 + c)) * bnd32
-                exp[27] = np.asarray(col(15 + c)) * bnd32
-            for base, want in exp.items():
-                np.testing.assert_array_equal(
-                    unplane(fgp, base + c, F, Fp), want,
-                    err_msg=f"fgp plane {base + c} (wneu={wneu})")
-            # dkp: dk hi(3) then lo(3)
-            dkc = dd.add((jnp.asarray(cpk[:, :, c]),
-                          jnp.asarray(cpk[:, :, 3 + c])),
-                         dd.neg((jnp.broadcast_to(xs[c][0][:, None],
-                                                  (B, E)),
-                                 jnp.broadcast_to(xs[c][1][:, None],
-                                                  (B, E)))))
-            np.testing.assert_array_equal(
-                unplane(dkp, c, E, Ep), np.asarray(dkc[0]) * cv32,
-                err_msg=f"dkp plane {c}")
-            np.testing.assert_array_equal(
-                unplane(dkp, 3 + c, E, Ep), np.asarray(dkc[1]) * cv32,
-                err_msg=f"dkp plane {3 + c}")
-        if wneu:
-            np.testing.assert_array_equal(
-                unplane(fgp, 30, F, Fp),
-                np.asarray(col(26)) * bnd32, err_msg="fgp nmean hi")
-            np.testing.assert_array_equal(
-                unplane(fgp, 31, F, Fp),
-                np.asarray(col(27)) * bnd32, err_msg="fgp nmean lo")
+def test_gls_refined_solver_matches_oracle():
+    """solver="refined" (f32 QR preconditioner + f64 normal-equation
+    refinement), the cross-check path beside "cholqr", vs the oracle."""
+    case, interp = setup_case("tetra", 3)
+    f = get_fields(interp, case.name)
+    tp = np.arange(interp.grid.n_points)
+    interp.gls.solver = "refined"
+    W, NW = interp.prepare_interpolator("gls", case.name, tp)
+    Wo, NWo, cond = gls_oracle(interp.grid, tp, f["perm"], f["dmag"],
+                               f["nflag"], f["nval"], return_cond=True)
+    ok = cond < 1e7
+    scale = max(np.abs(Wo[ok]).max(), 1.0)
+    assert np.abs(W[ok] - Wo[ok]).max() / scale < 1e-10
+    assert np.abs(NW[ok] - NWo[ok]).max() / scale < 1e-10

@@ -1,18 +1,17 @@
-"""Pallas df32 kernels (interpreter mode on CPU) + df32 arithmetic."""
+"""df32 (double-float32) arithmetic, the float64 -> pair split the GLS
+kernel relies on, and the CholQR2 breakdown flag."""
+import os
+import re
+import sys
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from ninpol_tpu.ops import df32, pallas_qr
+from ninpol_tpu.ops import df32
 
-
-@pytest.fixture(autouse=True)
-def interpret_mode():
-    old = pallas_qr.INTERPRET
-    pallas_qr.INTERPRET = True
-    yield
-    pallas_qr.INTERPRET = old
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_df32_arithmetic():
@@ -41,237 +40,84 @@ def test_df32_tree_sum():
     assert np.abs(s - x.sum(axis=1)).max() / np.abs(x).sum(1).max() < 1e-12
 
 
-def test_qr_and_solve_match_float64():
-    B, m, n = 128, 64, 25
-    rng = np.random.default_rng(2)
-    A = np.zeros((B, m, n))
-    A[:, :50, :] = rng.standard_normal((B, 50, n))
-    Ah = jnp.asarray(A, jnp.float32)
-    Al = jnp.asarray(A - np.float32(A), jnp.float32)
-    Rh, Rl = pallas_qr.qr_r_df32(Ah, Al)
-    R = (np.asarray(Rh).astype(np.float64)
-         + np.asarray(Rl))[:n, :, 0]
-    R64 = np.linalg.qr(A[0], mode="r")
-    assert np.abs(np.abs(R) - np.abs(R64)).max() / np.abs(R64).max() < 1e-12
-
-    b = np.zeros((B, n))
-    b[:, -1] = 1.0
-    yh, yl = pallas_qr.sne_solve_df32(Rh, Rl, jnp.asarray(b, jnp.float32),
-                                      jnp.zeros((B, n), jnp.float32))
-    y = np.asarray(yh).astype(np.float64) + np.asarray(yl)
-    for i in (0, 7):
-        yref = np.linalg.solve(A[i].T @ A[i], b[i])
-        assert np.abs(y[i] - yref).max() / np.abs(yref).max() < 1e-11
-
-    q = np.asarray(pallas_qr.r_diag_quality(Rh))
-    assert (q > 1e-4).all()
+def test_df32_from_f64_rounds_like_float32():
+    """The bit-pattern split equals the plain f64 -> f32 -> f64 round
+    trip bit for bit (round half to even included) on negatives, signed
+    zeros, exact ties and magnitudes whose lo half is a normal float32
+    too (XLA flushes subnormal results to zero)."""
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal(4000) * np.exp2(rng.integers(-60, 60, 4000))
+    h = rng.standard_normal(1000).astype(np.float32)
+    ties = h.astype(np.float64) + np.spacing(h).astype(np.float64) / 2
+    a = np.concatenate([a, ties, -ties, [0.0, -0.0, 1.0, -3.5]])
+    hi, lo = (np.asarray(x) for x in jax.jit(df32.from_f64)(jnp.asarray(a)))
+    ref_hi = a.astype(np.float32)
+    ref_lo = (a - ref_hi.astype(np.float64)).astype(np.float32)
+    assert hi.dtype == lo.dtype == np.float32
+    np.testing.assert_array_equal(hi.view(np.uint32), ref_hi.view(np.uint32))
+    np.testing.assert_array_equal(lo.view(np.uint32), ref_lo.view(np.uint32))
 
 
-def test_gls_pallas_solver_matches_oracle():
-    """Force solver='pallas' (interpret mode) on a tiny mesh."""
-    from ninpol_tpu.interpolator import Interpolator
-    from ninpol_tpu.utils import meshgen
-    from tests.utils.cases import LINCase
-    from tests.utils.oracle import gls_oracle
-
-    case = LINCase()
-    case.assign_mesh_properties(meshgen.tetra_mesh(2), seed=0)
-    interp = Interpolator()
-    interp.load_mesh(mesh_obj=case.mesh)
-    interp.gls.solver = "pallas"
-    tp = np.arange(interp.grid.n_points)
-    W, NW = interp.prepare_interpolator("gls", case.name, tp)
-    v2i = interp.variable_to_index
-    Wo, NWo, cond = gls_oracle(
-        interp.grid, tp, interp.cells_data[v2i["cells"]["permeability"]],
-        interp.cells_data[v2i["cells"]["diff_mag"]],
-        interp.points_data[v2i["points"]["neumann_flag_LIN"]].astype(int),
-        interp.points_data[v2i["points"]["neumann_LIN"]],
-        return_cond=True)
-    ok = cond < 1e7
-    assert np.abs(W[ok] - Wo[ok]).max() < 1e-10
+_CONVERT = re.compile(
+    r"(%\S+) = stablehlo\.convert (%\S+) : "
+    r"\(tensor<(?:[^>]*x)?(f\d+)>\) -> tensor<(?:[^>]*x)?(f\d+)>")
 
 
-def test_gls_fused_kernel_matches_oracle():
-    """Run the production fused Pallas solve (gls_solve_fused) in
-    interpret mode on CPU against the dgels oracle — covers the TPU
-    fast path (df32 prologue + in-kernel CholQR2/refinement) without
-    hardware.  Tolerance is slightly loose for interpreter drift."""
-    from ninpol_tpu.interpolator import Interpolator
-    from ninpol_tpu._methods import gls as gls_mod
-    from ninpol_tpu.ops import pallas_chol
-    from ninpol_tpu.utils import meshgen
-    from tests.utils.cases import ALHCase
-    from tests.utils.oracle import gls_oracle
-
-    old_i, old_f = pallas_chol.INTERPRET, gls_mod._FORCE_FUSED
-    pallas_chol.INTERPRET = True
-    gls_mod._FORCE_FUSED = True
-    try:
-        case = ALHCase()
-        case.assign_mesh_properties(meshgen.tetra_mesh(3), seed=0)
-        interp = Interpolator()
-        interp.load_mesh(mesh_obj=case.mesh)
-        tp = np.arange(interp.grid.n_points)
-        W, NW = interp.prepare_interpolator("gls", case.name, tp)
-        v2i = interp.variable_to_index
-        Wo, NWo, cond = gls_oracle(
-            interp.grid, tp,
-            interp.cells_data[v2i["cells"]["permeability"]],
-            interp.cells_data[v2i["cells"]["diff_mag"]],
-            interp.points_data[
-                v2i["points"][f"neumann_flag_{case.name}"]].astype(int),
-            interp.points_data[v2i["points"][f"neumann_{case.name}"]],
-            return_cond=True)
-        ok = cond < 1e7
-        assert np.abs(W[ok] - Wo[ok]).max() < 1e-9
-        assert np.abs(NW[ok] - NWo[ok]).max() < 1e-9
-    finally:
-        pallas_chol.INTERPRET = old_i
-        gls_mod._FORCE_FUSED = old_f
+def _f64_f32_f64_chains(text):
+    """Count convert(convert(x: f64 -> f32) -> f64) chains in a lowered
+    StableHLO module, function by function."""
+    n = 0
+    for fn in text.split("func.func")[1:]:
+        narrowed = set()
+        for res, src, t_in, t_out in _CONVERT.findall(fn):
+            if (t_in, t_out) == ("f64", "f32"):
+                narrowed.add(res)
+            elif (t_in, t_out) == ("f32", "f64") and src in narrowed:
+                n += 1
+    return n
 
 
-def test_pregather_tile_cache_tracks_variable_data():
-    """The fused path's stencil gathers are hoisted out of the solve
-    and cached per (grid, variable, plan) on the bucket-plan dicts
-    (gls.prepare gather_tiles).  The cache key is the face-cache key
-    (data version + variable), so new cell data MUST re-gather: stale
-    tiles would silently serve the OLD permeability's flux vectors.
-    Pin both directions: (a) changed data -> weights bit-equal to a
-    fresh interpolator on the same data, (b) the second prepare really
-    hit the tile cache (same tiles object on the plan dicts)."""
-    from ninpol_tpu.interpolator import Interpolator
-    from ninpol_tpu._methods import gls as gls_mod
-    from ninpol_tpu.ops import pallas_chol
-    from ninpol_tpu.utils import meshgen
-    from tests.utils.cases import ALHCase
+def test_round_trip_detector_sees_the_plain_split():
+    """The chain counter finds the plain f64 -> f32 -> f64 split (so a
+    zero below means something) and none in df32.from_f64."""
+    def plain(a):
+        h = a.astype(jnp.float32)
+        return h, (a - h.astype(jnp.float64)).astype(jnp.float32)
 
-    def _scale_kxx(interp, s):
-        # anisotropic change (K_xx only): a UNIFORM K scaling could
-        # leave the LS solution invariant, which would mask staleness
-        pidx = interp.variable_to_index["cells"]["permeability"]
-        kview = interp.cells_data[pidx][
-            :interp.grid.n_elems * 9].reshape(-1, 9)
-        kview[:, 0] *= s
-        interp._data_version += 1
-        interp._prep_cache = {}
-
-    def fresh(scale):
-        case = ALHCase()
-        case.assign_mesh_properties(meshgen.tetra_mesh(2), seed=0)
-        interp = Interpolator()
-        interp.load_mesh(mesh_obj=case.mesh)
-        if scale != 1.0:
-            # same semantics as a load_data() reload: new payload,
-            # bumped version stamp, cleared result cache
-            _scale_kxx(interp, scale)
-        return interp, case.name
-
-    old_i, old_f = pallas_chol.INTERPRET, gls_mod._FORCE_FUSED
-    pallas_chol.INTERPRET = True
-    gls_mod._FORCE_FUSED = True
-    try:
-        interp, var = fresh(1.0)
-        tp = np.arange(interp.grid.n_points)
-        W1, _ = interp.prepare_interpolator("gls", var, tp)
-
-        def tile_cells(itp):
-            # tiles live on the unit payloads: scan megabuckets hang
-            # off their proto bucket's _scan_unit, singles on the
-            # bucket dict itself — both persist in the plan cache
-            out = []
-            for plan in itp.device_grid._plan_cache.values():
-                for b in plan:
-                    out.append(b.get("_tiles"))
-                    mb = b.get("_scan_unit")
-                    if mb is not None:
-                        out.append(mb.get("_tiles"))
-            return out
-
-        # repeat prepare on unchanged data must HIT the tile cache
-        interp._prep_cache = {}
-        tiles_before = tile_cells(interp)
-        W1b, _ = interp.prepare_interpolator("gls", var, tp)
-        tiles_after = tile_cells(interp)
-        assert any(t is not None for t in tiles_before), \
-            "pregather cache never populated — test premise broken"
-        for tb, ta in zip(tiles_before, tiles_after):
-            assert tb is ta, "tile cache missed on unchanged data"
-        np.testing.assert_array_equal(W1, W1b)
-
-        # changed permeability must MISS the cache and re-gather
-        _scale_kxx(interp, 3.0)
-        W2, _ = interp.prepare_interpolator("gls", var, tp)
-
-        ref2, _ = fresh(3.0)
-        W2ref, _ = ref2.prepare_interpolator("gls", var, tp)
-        np.testing.assert_array_equal(W2, W2ref)
-        assert np.abs(W1 - W2).max() > 0, \
-            "weights insensitive to permeability — test premise broken"
-    finally:
-        pallas_chol.INTERPRET = old_i
-        gls_mod._FORCE_FUSED = old_f
+    x = jnp.ones((2, 3))
+    assert _f64_f32_f64_chains(jax.jit(plain).lower(x).as_text()) == 1
+    assert _f64_f32_f64_chains(
+        jax.jit(df32.from_f64).lower(x).as_text()) == 0
 
 
-def test_gls_pregather_kill_switch(monkeypatch):
-    """NINPOL_TPU_NO_PREGATHER=1 must fall back to in-kernel stencil
-    gathers on the fused GLS path and stay bit-identical — the hoisted
-    gather half does no float arithmetic (gls.prepare gather_tiles).
-    Runs the fused kernel in interpret mode like the tile-cache test."""
-    from ninpol_tpu.interpolator import Interpolator
-    from ninpol_tpu._methods import gls as gls_mod
-    from ninpol_tpu.ops import pallas_chol
-    from ninpol_tpu.utils import meshgen
-    from tests.utils.cases import ALHCase
+@pytest.mark.parametrize("program", ["graft_entry", "interior_bucket"])
+def test_gls_kernel_holds_no_f64_f32_f64_round_trip(program):
+    """XLA's GPU compiler, which allows excess precision by default,
+    folds f64 -> f32 -> f64 convert chains to the identity; a hi/lo split
+    written that way loses every lo half on the card, the df32 sweeps
+    stall at float32 accuracy and nearly every node falls back to the
+    exact path.  The fast GLS kernel, jitted with default compiler
+    options as any caller would, must hold no such chain."""
+    from ninpol_tpu._methods.gls import _gls_bucket_impl
 
-    def fresh():
-        case = ALHCase()
-        case.assign_mesh_properties(meshgen.tetra_mesh(2), seed=0)
-        interp = Interpolator()
-        interp.load_mesh(mesh_obj=case.mesh)
-        return interp, case.name
-
-    def tiles(itp):
-        out = []
-        for plan in itp.device_grid._plan_cache.values():
-            for b in plan:
-                out.append(b.get("_tiles"))
-                mb = b.get("_scan_unit")
-                if mb is not None:
-                    out.append(mb.get("_tiles"))
-        return out
-
-    old_i, old_f = pallas_chol.INTERPRET, gls_mod._FORCE_FUSED
-    pallas_chol.INTERPRET = True
-    gls_mod._FORCE_FUSED = True
-    try:
-        interp, var = fresh()
-        tp = np.arange(interp.grid.n_points)
-        W0, N0 = interp.prepare_interpolator("gls", var, tp)
-        assert any(t is not None for t in tiles(interp)), \
-            "pre-gather tiles never populated — test premise broken"
-
-        monkeypatch.setenv("NINPOL_TPU_NO_PREGATHER", "1")
-        interp1, var1 = fresh()               # fresh: no cached tiles
-        W1, N1 = interp1.prepare_interpolator("gls", var1, tp)
-        assert all(t is None for t in tiles(interp1)), \
-            "kill switch did not disable the pre-gather tile cache"
-        np.testing.assert_array_equal(W0, W1)
-        np.testing.assert_array_equal(N0, N1)
-    finally:
-        pallas_chol.INTERPRET = old_i
-        gls_mod._FORCE_FUSED = old_f
+    sys.path.insert(0, REPO)
+    from __graft_entry__ import entry
+    fn, args = entry()
+    if program == "interior_bucket":
+        def fn(*a):
+            return _gls_bucket_impl(*a, E=8, F=12, with_neumann=False)
+    text = jax.jit(fn).lower(*args).as_text()
+    assert "stablehlo.convert" in text
+    assert _f64_f32_f64_chains(text) == 0
 
 
 def test_clamped_pivot_flags_both_rounds():
-    """ADVICE r2 regression: breakdown detection must look at BOTH
-    CholQR rounds' diagonals.  A clamped round-1 pivot shows up as
+    """Breakdown detection must look at BOTH CholQR rounds' diagonals.  A clamped round-1 pivot shows up as
     |diag(Li1)| ~ 1/sqrt(tiny), but a large round-2 diagonal can cancel
     it in the combined factor Lc = L2^{-1} Li1, pushing max |diag(Lc)|
     back under the 3e4 sick threshold — so the guard is
-    max(|diag Li1|, |diag Lc|) (gls.py XLA path) / max(dinv1,
-    dinv1*dinv2) (pallas_chol._solve_kernel)."""
-    from ninpol_tpu.ops.pallas_chol import chol_linv_f32
+    max(|diag Li1|, |diag Lc|) (gls.py cholqr path)."""
+    from ninpol_tpu.ops.solve import chol_linv_f32
 
     B, n = 4, 8
     G1 = np.tile(np.eye(n, dtype=np.float32), (B, 1, 1))
@@ -288,46 +134,40 @@ def test_clamped_pivot_flags_both_rounds():
     assert max(d_comb, d_r1) > 3e4   # the both-rounds guard catches it
 
 
-def test_gls_merged_gather_bit_equal(monkeypatch):
-    """NINPOL_TPU_MERGED_GATHER=1 gathers EVERY unit's tiles in ONE
-    program (gls._gls_gather_plan — the TPU default, where each extra
-    executable costs ~10 s of load through the remote helper) and must
-    be bit-identical to the per-unit gather programs: both halves are
-    pure data movement, no float arithmetic."""
-    from ninpol_tpu.interpolator import Interpolator
-    from ninpol_tpu._methods import gls as gls_mod
-    from ninpol_tpu.ops import pallas_chol
-    from ninpol_tpu.utils import meshgen
-    from tests.utils.cases import ALHCase
+def test_cholqr_helpers_match_float64():
+    """The batched CholQR2 pieces (ops/solve.py) vs NumPy float64 on a
+    well-conditioned batch: Gram, second-round Gram, the inverse factor
+    with and without a right factor, and the preconditioner apply."""
+    import jax
+    from ninpol_tpu.ops.solve import (chol_linv_f32, gram_f32,
+                                      prec_apply_f32, round2_gram_f32)
 
-    def run():
-        case = ALHCase()
-        case.assign_mesh_properties(meshgen.tetra_mesh(2), seed=0)
-        interp = Interpolator()
-        interp.load_mesh(mesh_obj=case.mesh)
-        tp = np.arange(interp.grid.n_points)
-        W, NW = interp.prepare_interpolator("gls", case.name, tp)
-        n_tiled = 0
-        for plan in interp.device_grid._plan_cache.values():
-            for b in plan:
-                for d in (b, b.get("_scan_unit") or {}):
-                    if d.get("_tiles") is not None:
-                        n_tiled += 1
-        return W, NW, n_tiled
+    rng = np.random.default_rng(3)
+    B, m, n = 16, 40, 13
+    A = rng.standard_normal((B, m, n)).astype(np.float32)
+    A64 = A.astype(np.float64)
+    G = np.einsum("bmn,bmk->bnk", A64, A64)
+    rel = lambda x, ref: np.abs(np.asarray(x) - ref).max() / np.abs(ref).max()
+    assert rel(gram_f32(jnp.asarray(A)), G) < 1e-5
 
-    old_i, old_f = pallas_chol.INTERPRET, gls_mod._FORCE_FUSED
-    pallas_chol.INTERPRET = True
-    gls_mod._FORCE_FUSED = True
-    try:
-        monkeypatch.setenv("NINPOL_TPU_MERGED_GATHER", "1")
-        Wm, NWm, n_tiled = run()
-        assert n_tiled > 1, \
-            "merged gather needs >1 unit — test premise broken"
-        monkeypatch.delenv("NINPOL_TPU_MERGED_GATHER")
-        monkeypatch.setenv("NINPOL_TPU_PER_UNIT_GATHER", "1")
-        Wp, NWp, _ = run()
-        np.testing.assert_array_equal(Wm, Wp)
-        np.testing.assert_array_equal(NWm, NWp)
-    finally:
-        pallas_chol.INTERPRET = old_i
-        gls_mod._FORCE_FUSED = old_f
+    L = np.linalg.cholesky(G)
+    Li = np.linalg.inv(L)
+    Li1 = chol_linv_f32(jnp.asarray(G, jnp.float32))
+    assert rel(Li1, Li) < 1e-4
+    assert np.abs(np.triu(np.asarray(Li1)[0], 1)).max() == 0.0
+
+    Q = np.einsum("bmn,bkn->bmk", A64, Li)
+    G2 = np.einsum("bmn,bmk->bnk", Q, Q)
+    assert rel(round2_gram_f32(jnp.asarray(A), jnp.asarray(Li, jnp.float32)),
+               G2) < 1e-5
+
+    P = np.tril(rng.standard_normal((B, n, n)))
+    Lc = chol_linv_f32(jnp.asarray(G, jnp.float32),
+                       mul_right=jnp.asarray(P, jnp.float32))
+    assert rel(Lc, Li @ P) < 1e-4
+
+    v = rng.standard_normal((B, n))
+    Mv = np.einsum("bkn,bk->bn", Li, np.einsum("bnk,bk->bn", Li, v))
+    out = jax.jit(prec_apply_f32)(jnp.asarray(Li, jnp.float32),
+                                  jnp.asarray(v, jnp.float32))
+    assert rel(out, Mv) < 1e-5

@@ -34,7 +34,7 @@ def test_public_api_sharded_matches_single_device(method):
     """Interpolator(mesh=8): the ENTIRE public interpolate() path —
     every bucket (interior, Neumann, exact fallback) — runs through
     jax.shard_map and must match the single-device result on every
-    node (VERDICT r2 #4: multichip as a first-class API path)."""
+    node (multi-device as a first-class API path)."""
     case = ALHCase()
     case.assign_mesh_properties(meshgen.tetra_mesh(4), seed=0)
     single = Interpolator()
@@ -117,8 +117,8 @@ def test_public_api_shard_geometry_matches(method):
     PARTITIONED across the mesh (HBM scaling — dim 0, padded to the
     mesh size) and the kernels run under GSPMD auto-partitioning with
     XLA-inserted stencil-gather collectives.  Must match the
-    single-device result through the public interpolate() (VERDICT r3
-    #7: claim and public API must agree)."""
+    single-device result through the public interpolate() (claim and
+    public API must agree)."""
     case = ALHCase()
     case.assign_mesh_properties(meshgen.tetra_mesh(4), seed=0)
     single = Interpolator()
@@ -134,7 +134,7 @@ def test_public_api_shard_geometry_matches(method):
 
 @needs_8
 def test_sharded_actually_partitions():
-    """VERDICT r4 #5: back the multichip claim with shard-shape
+    """Back the multi-device claim with shard-shape
     evidence, not just single-device equality.  Replicated-geometry
     mode must place the node batch (and the kernel outputs) partitioned
     across all 8 devices; shard_geometry mode must partition every grid
@@ -168,6 +168,14 @@ def test_sharded_actually_partitions():
     sharded = Interpolator(mesh=8, shard_geometry=True)
     sharded.load_mesh(mesh_obj=case.mesh)
     dgs = sharded.device_grid
+    # ids travel only in int32 tables, never as float bit patterns (a
+    # partitioned gather may do float arithmetic on its operand)
+    tables = {k: v for k, v in vars(dgs).items() if isinstance(v, jax.Array)}
+    ints = {k for k, v in tables.items() if v.dtype == jnp.int32}
+    assert ints == {"face_ipack", "esup2d", "esup_cnt", "fsup2d",
+                    "fsup_cnt"}
+    assert all(v.dtype == jnp.float32 for k, v in tables.items()
+               if k not in ints)
     for name in ("point_pack", "cell_pack", "face_ipack", "esup2d",
                  "nrm_h", "fcc_h"):
         arr = getattr(dgs, name)
@@ -178,9 +186,18 @@ def test_sharded_actually_partitions():
         assert rows == [n0 // 8] * 8, name
 
 
+@pytest.mark.parametrize("via", ["make_mesh", "Interpolator"])
+def test_mesh_with_too_few_devices_raises(via):
+    """Asking for more devices than exist raises instead of silently
+    building a smaller mesh."""
+    n = len(jax.devices()) + 1
+    with pytest.raises(ValueError, match=f"{n} devices"):
+        make_mesh(n) if via == "make_mesh" else Interpolator(mesh=n)
+
+
 @needs_8
 def test_dryrun_multichip_inner():
-    """Run the driver's multichip artifact in-suite (VERDICT r4 #1c):
+    """Run the multichip dry run in-suite:
     pins the masked idw/ls comparisons so the harness can't rot
     unobserved, and pre-warms the exact dryrun program shapes into the
     shared persistent compile cache so the driver's own run is warm."""

@@ -71,7 +71,7 @@ def test_meshgen_families_conforming(fam):
 
 
 def test_df32_pow_accuracy():
-    """df32 pow (used for the GLS tau weights on TPU) must stay within
+    """df32 pow must stay within
     ~1e-12 of float64 pow over the tau domain; includes integer-adjacent
     exponent products (an exact-2^k regression: jnp.exp2 is off by an
     ulp at some integers) and the exp2 split edge where |y - round(y)|
@@ -100,9 +100,8 @@ def test_df32_pow_accuracy():
 
 def test_bucket_chunk_plan_bounds():
     """The chunk planner's two contracts: at most THREE distinct (E, F, B)
-    programs per bucket class per run (every distinct program costs ~10 s
-    of cached-executable load through this environment's remote helper),
-    and bounded padding (a tail chunk pads by at most 4x its real nodes —
+    programs per bucket class per run (every distinct program is one more
+    compile and load), and bounded padding (a tail chunk pads by at most 4x its real nodes —
     a single fixed tail quantum once padded a 27-node CPU-test bucket to
     8192, 70 s/call)."""
     import numpy as np
@@ -138,7 +137,7 @@ def test_bucket_chunk_plan_bounds():
 
 
 def test_df32_exp2_saturates():
-    """ADVICE r2 regression: the exponent-field construction of 2^k in
+    """Regression: the exponent-field construction of 2^k in
     df32.exp2 must SATURATE outside [-126, 127] instead of silently
     wrapping the f32 exponent field (tau_base 1e-30 with eta > 1.27 can
     reach |x| > 126 through powd)."""

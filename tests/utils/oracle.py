@@ -2,7 +2,7 @@
 
 These are direct per-node re-implementations of the reference's Cython
 kernels (written from the behavioral spec in SURVEY.md, not translated
-code), used as the correctness oracle for the vectorized TPU kernels:
+code), used as the correctness oracle for the vectorized device kernels:
 
   * idw_oracle  — ninpol/_methods/idw.pyx:35-84
   * ls_oracle   — ninpol/_methods/ls.pyx:33-136
